@@ -1,0 +1,9 @@
+"""granite-34b [dense] — llama-arch MQA (kv=1), code model. [arXiv:2405.04324; hf]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-34b", family="dense",
+    n_layers=88, d_model=6144, n_heads=48, n_kv_heads=1, head_dim=128,
+    d_ff=24576, vocab=49152,
+    note="MQA (single KV head); deepest assigned dense arch",
+)
