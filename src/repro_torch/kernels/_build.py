@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 Each ``src/repro_torch/csrc/<name>.cu`` is a plain CUDA C++ file with an
-``extern "C"`` launcher.  It is compiled at first use with ``nvcc`` for
-``sm_90a`` into ``kernels/_build/`` (a shared library named after the
-source's content hash, so an edited source is rebuilt and a stale library is
-never loaded) and opened with ``ctypes``.  A missing ``nvcc`` or a failed
+``extern "C"`` launcher; it may include the shared ``csrc/*.cuh`` headers.
+It is compiled at first use with ``nvcc`` for ``sm_90a`` into
+``kernels/_build/`` (a shared library named after a hash of the source and
+the headers, so an edited source is rebuilt and a stale library is never
+loaded) and opened with ``ctypes``.  A missing ``nvcc`` or a failed
 build raises: no caller falls back to a plain version.
 """
 
@@ -44,29 +45,53 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
+    source, of every shared header in ``csrc/`` and of the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> dict:
+    """Compile each ``csrc/<name>.cu`` whose library is not built yet, one
+    ``nvcc`` process per source, all started together; returns name ->
+    library path.  ``build_seconds`` gets, for each, the seconds from the
+    start of the builds until its library was in place."""
+    outs = {name: library_path(name) for name in names}
+    todo = [name for name, out in outs.items() if not out.exists()]
+    for name in outs:
+        if name not in todo:
+            build_seconds.setdefault(name, 0.0)
+    if not todo:
+        return outs
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name in todo:
+        tmp = outs[name].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = tmp, subprocess.Popen(
+            cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {name}.cu:\n{err}")
+            continue
+        os.replace(tmp, outs[name])
+        build_seconds[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
-    if out.exists():
-        build_seconds.setdefault(name, 0.0)
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_seconds[name] = time.perf_counter() - t0
-    return out
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

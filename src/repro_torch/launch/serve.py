@@ -2,14 +2,17 @@
 (counterpart of the offline path of ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
-        --factorize [--rank 0.5 --solver svd] [--device cpu --reduced]
+        --factorize [--rank 0.5 --solver svd] [--device cpu --reduced] \\
+        [--decode-kernel cuda --prefill-kernel cuda]
 
 Builds the model from a seeded generator on ``--device`` (``cuda`` unless
 asked), optionally factorizes it with ``auto_fact`` (embed and lm_head
 excluded, r_max gate off, as the JAX driver does), and replays a Poisson
 arrival trace of variable-length prompts through the paged, chunked,
-greedy engine.  Prints tok/s, latency and TTFT percentiles, the KV pool's
-occupancy and the prefill profile.
+greedy engine, with the attention that ``--decode-kernel`` and
+``--prefill-kernel`` name (the ``reference`` gather by default, or the
+``cuda`` kernels).  Prints tok/s, latency and TTFT percentiles, the KV
+pool's occupancy and the prefill profile.
 """
 
 from __future__ import annotations
@@ -51,6 +54,14 @@ def main(argv=None) -> int:
     p.add_argument("--rank", type=float, default=0.5,
                    help="factorization rank as a ratio of min(m, n)")
     p.add_argument("--solver", default="svd", choices=("svd", "random"))
+    p.add_argument("--decode-kernel", default="reference",
+                   choices=("reference", "cuda"),
+                   help="paged decode attention: the reference gather or "
+                        "the CUDA paged-attention kernel")
+    p.add_argument("--prefill-kernel", default="reference",
+                   choices=("reference", "cuda"),
+                   help="chunked prefill attention: the reference gather "
+                        "or the CUDA chunk-attention kernel")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' to run there)")
     p.add_argument("--seed", type=int, default=0)
@@ -81,7 +92,9 @@ def main(argv=None) -> int:
                            max_len=args.max_len,
                            max_prompt_len=args.max_prompt_len,
                            block_size=args.block_size,
-                           chunk_size=args.chunk_size)
+                           chunk_size=args.chunk_size,
+                           decode_kernel=args.decode_kernel,
+                           prefill_kernel=args.prefill_kernel)
     print(format_stats(label, stats))
     print(format_kv_stats(label, stats))
     print(format_prefill_stats(label, stats))

@@ -51,8 +51,9 @@ class DenseBlock(nn.Module):
             mlp=SwiGLU.create(gen, cfg.d_model, cfg.d_ff, dtype=dt),
         )
 
-    def decode(self, x, cache: PagedKVCache):
-        a, cache = self.attn.decode(self.attn_norm(x), cache)
+    def decode(self, x, cache: PagedKVCache, decode_kernel="reference"):
+        a, cache = self.attn.decode(self.attn_norm(x), cache,
+                                    decode_kernel=decode_kernel)
         x = x + a
         x = x + self.mlp(self.mlp_norm(x))
         return x, cache
@@ -151,7 +152,8 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def prefill_chunk(self, tokens: torch.Tensor, cache: PagedKVCache, *,
                       slot: int, offset: int, n_valid: int,
-                      dst: torch.Tensor, need_logits: bool = True):
+                      dst: torch.Tensor, need_logits: bool = True,
+                      prefill_kernel: str = "reference"):
         """Consume one bucket-padded prompt chunk for slot ``slot``.
 
         ``tokens``: (1, W) int — ``n_valid`` real tokens starting at
@@ -159,20 +161,27 @@ class TransformerLM(nn.Module):
         ``dst`` carries the flat pool row per chunk position (sentinel for
         padding/cached-prefix positions).  Returns ``(logits (1, vocab) at
         the chunk's last valid position, cache)``, or ``(None, cache)``
-        with ``need_logits=False`` (mid-prompt chunks skip the head)."""
+        with ``need_logits=False`` (mid-prompt chunks skip the head).
+        ``prefill_kernel`` picks each layer's chunk attention
+        (``"reference"`` gather or the ``"cuda"`` kernel)."""
         x = self.embed(tokens)
         x, cache = self._layers(
             x, cache, lambda blk, h, c: blk.prefill_chunk(
-                h, c, slot=slot, offset=offset, n_valid=n_valid, dst=dst))
+                h, c, slot=slot, offset=offset, n_valid=n_valid, dst=dst,
+                prefill_kernel=prefill_kernel))
         if not need_logits:
             return None, cache
         last = x[:, n_valid - 1:n_valid]
         return self._head(self.final_norm(last))[:, 0], cache
 
     @torch.no_grad()
-    def decode(self, token: torch.Tensor, cache: PagedKVCache):
-        """token: (batch, s) -> logits (batch, s, vocab) + updated cache."""
+    def decode(self, token: torch.Tensor, cache: PagedKVCache,
+               decode_kernel: str = "reference"):
+        """token: (batch, s) -> logits (batch, s, vocab) + updated cache.
+        ``decode_kernel`` picks each layer's attention (``"reference"``
+        gather or the ``"cuda"`` paged-attention kernel)."""
         x = self.embed(token)
-        x, cache = self._layers(x, cache,
-                                lambda blk, h, c: blk.decode(h, c))
+        x, cache = self._layers(
+            x, cache,
+            lambda blk, h, c: blk.decode(h, c, decode_kernel=decode_kernel))
         return self._head(self.final_norm(x)), cache

@@ -1,6 +1,14 @@
 """Grouped-query attention with RoPE over the paged KV layout
 (counterpart of ``repro.nn.attention``; the paged serving paths only).
 
+Each serving path takes a kernel knob, as in JAX (where the kernel is
+``"pallas"``): ``"reference"`` gathers the slot's logical lane from the
+pool and runs masked attention over it; ``"cuda"`` hands the attention to
+the kernel wrapper (``repro_torch.kernels.paged_attention.paged_attention``
+at decode, ``repro_torch.kernels.chunk_attention.chunk_attention`` for a
+prefill chunk), which launches the CUDA kernel for a tensor on the card and runs
+its plain version for a CPU tensor.
+
 The projections are ``Linear`` modules, so ``auto_fact`` turns them into
 ``LED`` layers transparently.
 
@@ -23,11 +31,21 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from repro_torch.kernels._paged import NEG_INF
+from repro_torch.kernels.chunk_attention import chunk_attention
+from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.nn.linear import Linear
 from repro_torch.nn.rotary import apply_rope
 
-# mask fill value, equal to repro.nn.attention.NEG_INF
-NEG_INF = -1e30
+KERNELS = ("reference", "cuda")
+
+
+def check_kernel(knob: str, value: str) -> None:
+    """Raise ``ValueError`` for a ``decode_kernel``/``prefill_kernel`` name
+    other than those in ``KERNELS``."""
+    if value not in KERNELS:
+        raise ValueError(f"unknown {knob} {value!r}; expected one of "
+                         f"{KERNELS}")
 
 
 class UnsupportedCacheError(ValueError):
@@ -139,42 +157,56 @@ class Attention(nn.Module):
 
     def prefill_chunk(self, x: torch.Tensor, cache: PagedKVCache, *,
                       slot: int, offset: int, n_valid: int,
-                      dst: torch.Tensor):
+                      dst: torch.Tensor, prefill_kernel: str = "reference"):
         """Consume one prompt chunk for ONE slot of the paged cache.
 
         ``x``: (1, W, dim), a bucket-padded span whose first ``n_valid``
         rows are real tokens starting at absolute position ``offset``.
         ``dst`` gives the flat pool row for each of the W positions; the
         engine points padding and cached-prefix positions at the sentinel
-        row, and those writes drop.  The chunk attends the slot's whole
-        logical lane (earlier chunks and shared prefix blocks) under a
-        ``kpos <= qpos`` mask.
+        row, and those writes drop.  ``prefill_kernel="reference"`` attends
+        the slot's whole gathered lane (earlier chunks and shared prefix
+        blocks) under a ``kpos <= qpos`` mask; ``"cuda"`` streams the
+        resident prefix and the chunk's own K/V through the chunk kernel.
+        Valid rows agree to float tolerance; padding rows carry no contract.
 
         Returns ``(chunk outputs (1, W, dim), cache)`` with the slot's
         length advanced to ``offset + n_valid``."""
+        check_kernel("prefill_kernel", prefill_kernel)
         w = x.shape[1]
         qpos = offset + torch.arange(w, device=x.device)
         q, k, v = self._qkv(x, qpos[None, :])
         nb, bs, kvh, hd = cache.k.shape
         _scatter_rows(cache.k.view(nb * bs, kvh, hd), dst, k[0])
         _scatter_rows(cache.v.view(nb * bs, kvh, hd), dst, v[0])
-        gk, gv, kpos = self._gather_lanes(cache, cache.table[slot][None],
-                                          x.dtype)
-        valid = kpos[None, :] <= qpos[:, None]  # (W, S)
-        out = self._attend(q, gk, gv, valid[None, None])
+        if prefill_kernel == "cuda":
+            out = chunk_attention(
+                q[0], cache.k, cache.v, cache.table[slot],
+                k[0].to(cache.k.dtype), v[0].to(cache.v.dtype), offset,
+                n_valid).reshape(1, w, -1)
+        else:
+            gk, gv, kpos = self._gather_lanes(cache, cache.table[slot][None],
+                                              x.dtype)
+            valid = kpos[None, :] <= qpos[:, None]  # (W, S)
+            out = self._attend(q, gk, gv, valid[None, None])
         length = cache.length.clone()
         length[slot] = offset + n_valid
         return self.o_proj(out), cache._replace(length=length)
 
-    def decode(self, x: torch.Tensor, cache: PagedKVCache):
+    def decode(self, x: torch.Tensor, cache: PagedKVCache,
+               decode_kernel: str = "reference"):
         """Decode ``s`` tokens per slot against the shared block pool
-        (the reference gather of ``repro.nn.attention._decode_paged``).
+        (``repro.nn.attention._decode_paged``).
 
         Each new K/V row goes to ``table[b, p // bs] * bs + p % bs`` for
         ``p = pos .. pos + s - 1``; slots whose table entry is the sentinel
-        (finished, never admitted, or parked) write nowhere.  Every mapped
-        pool row is then gathered back into logical order and masked
-        ``kpos > qpos`` per query."""
+        (finished, never admitted, or parked) write nowhere.  With
+        ``decode_kernel="reference"`` every mapped pool row is then
+        gathered back into logical order and masked ``kpos > qpos`` per
+        query; with ``"cuda"`` and ``s == 1`` the paged-attention kernel
+        reads the pool through the block table instead (multi-token steps
+        keep the gather, as in JAX)."""
+        check_kernel("decode_kernel", decode_kernel)
         b, s, _ = x.shape
         pos = cache.length  # (b,)
         qpos = pos[:, None].long() + torch.arange(s, device=x.device)[None]
@@ -189,7 +221,11 @@ class Attention(nn.Module):
                               torch.full_like(qpos, nb * bs))
         _scatter_rows(cache.k.view(nb * bs, kvh, hd), row_new, k)
         _scatter_rows(cache.v.view(nb * bs, kvh, hd), row_new, v)
-        gk, gv, kpos = self._gather_lanes(cache, cache.table, x.dtype)
-        valid = kpos[None, None, :] <= qpos[:, :, None]  # (b, s, S)
-        out = self._attend(q, gk, gv, valid[:, None])
+        if decode_kernel == "cuda" and s == 1:
+            out = paged_attention(q[:, 0], cache.k, cache.v, cache.table,
+                                  pos).reshape(b, 1, -1)
+        else:
+            gk, gv, kpos = self._gather_lanes(cache, cache.table, x.dtype)
+            valid = kpos[None, None, :] <= qpos[:, :, None]  # (b, s, S)
+            out = self._attend(q, gk, gv, valid[:, None])
         return self.o_proj(out), cache._replace(length=pos + s)

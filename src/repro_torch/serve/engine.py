@@ -20,11 +20,15 @@ eagerly, but the widths are kept so that chunks match JAX's).  Admission
 asks :class:`~repro_torch.serve.paging.PagedCacheManager` for the longest
 cached block chain of the prompt and starts prefill after it.
 
-What the JAX engine does beyond this path is refused, with the ROADMAP
-item that will port it: the dense KV layout, the Pallas attention
-kernels' counterparts, speculative decoding, meshes, non-``"kv"`` cache
-kinds, preemption, and sampled (temperature > 0) decoding.  Per-slot
-state lives on the model's device; the pool is updated in place.
+``decode_kernel`` / ``prefill_kernel`` pick the attention as the JAX
+engine's knobs do: ``"reference"`` (the gather, the default) or ``"cuda"``
+(the port's counterpart of JAX's ``"pallas"``: the paged-decode and
+chunk-prefill kernels, whose wrappers run the plain versions for CPU
+tensors).  What the JAX engine does beyond this path is refused, with the
+ROADMAP item that will port it: the dense KV layout, speculative decoding,
+meshes, non-``"kv"`` cache kinds, preemption, and sampled
+(temperature > 0) decoding.  Per-slot state lives on the model's device;
+the pool is updated in place.
 """
 
 from __future__ import annotations
@@ -36,13 +40,11 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.nn.attention import UnsupportedCacheError
+from repro_torch.nn.attention import UnsupportedCacheError, check_kernel
 from repro_torch.serve.paging import PagedCacheManager
 from repro_torch.serve.sampling import SAMPLED_ROADMAP_ITEM, greedy_tokens
 from repro_torch.serve.scheduler import Completion, Request, Scheduler
 
-ROADMAP_ATTENTION_KERNELS = ("port slice 2: paged decode and chunk prefill "
-                             "as CUDA kernels")
 ROADMAP_DENSE = "the dense KV layout, generate/Engine"
 ROADMAP_SPEC = "speculative decoding, preemption and cancel"
 ROADMAP_FAMILIES = "port the other families"
@@ -103,11 +105,8 @@ class ContinuousEngine:
             raise UnsupportedCacheError(
                 f"kv_layout={kv_layout!r}: the port serves the paged layout "
                 "only", roadmap_item=ROADMAP_DENSE)
-        if decode_kernel != "reference" or prefill_kernel != "reference":
-            raise NotImplementedError(
-                f"decode_kernel={decode_kernel!r}, prefill_kernel="
-                f"{prefill_kernel!r}: the port runs the reference gather "
-                f"attention only [ROADMAP: {ROADMAP_ATTENTION_KERNELS}]")
+        check_kernel("decode_kernel", decode_kernel)
+        check_kernel("prefill_kernel", prefill_kernel)
         if draft_model is not None or spec_k:
             raise NotImplementedError(
                 f"speculative decoding is not ported [ROADMAP: "
@@ -292,7 +291,8 @@ class ContinuousEngine:
         logits, self.cache = self.model.prefill_chunk(
             torch.as_tensor(toks, device=self.device), self.cache,
             slot=task.slot, offset=task.consumed, n_valid=n,
-            dst=torch.as_tensor(dst, device=self.device), need_logits=final)
+            dst=torch.as_tensor(dst, device=self.device), need_logits=final,
+            prefill_kernel=self.prefill_kernel)
         if final:
             task.logits = logits
         task.consumed += n
@@ -354,7 +354,8 @@ class ContinuousEngine:
         """One batched greedy decode step over every slot; inactive slots
         keep their token and position (their writes drop)."""
         st, old_len = self.state, self.cache.length
-        logits, cache = self.model.decode(st.tok[:, None].long(), self.cache)
+        logits, cache = self.model.decode(st.tok[:, None].long(), self.cache,
+                                          decode_kernel=self.decode_kernel)
         nxt = torch.where(st.active, greedy_tokens(logits[:, 0]), st.tok)
         length = torch.where(st.active[None, :], cache.length, old_len)
         self.cache = cache._replace(length=length)

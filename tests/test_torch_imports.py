@@ -54,6 +54,29 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     assert out.stdout.startswith("ok")
 
 
+def test_kernel_modules_are_checked_and_importing_builds_nothing():
+    """Every kernel module is among the sources checked above, and
+    importing the whole port compiles and loads no kernel."""
+    names = {p.name for p in SOURCES}
+    for mod in ("led_matmul.py", "paged_attention.py", "chunk_attention.py"):
+        assert mod in names
+    code = (
+        "import importlib, pathlib\n"
+        "from repro_torch.kernels import _build\n"
+        f"port = pathlib.Path({str(PORT)!r})\n"
+        "for p in sorted(port.rglob('*.py')):\n"
+        "    parts = p.relative_to(port).with_suffix('').parts\n"
+        "    name = '.'.join(('repro_torch',) + parts)\n"
+        "    importlib.import_module(name.replace('.__init__', ''))\n"
+        "assert not _build._libs and not _build.build_seconds\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PATH="")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_chip_smoke_refuses_without_a_card():
     """On a machine without CUDA the smoke exits non-zero and prints no
     result line."""

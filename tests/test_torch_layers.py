@@ -278,3 +278,30 @@ def test_failed_build_raises_with_compiler_output(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="error: broken"):
         _build.load("led_matmul")
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_build_all_starts_one_nvcc_per_source_together(monkeypatch,
+                                                       tmp_path):
+    from repro_torch.kernels import _build
+
+    log = tmp_path / "log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\nprev=''\nfor a in \"$@\"; do\n"
+        "  [ \"$prev\" = -o ] && out=$a\n  prev=$a\ndone\n"
+        f"echo start >> {log}\nsleep 0.5\necho end >> {log}\n"
+        "touch \"$out\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "build_seconds", {})
+    names = ("led_matmul", "paged_attention", "chunk_attention")
+    paths = _build.build_all(names)
+    assert set(paths) == set(names)
+    assert all(p.exists() and p.parent == tmp_path / "build"
+               for p in paths.values())
+    # every process started before any finished
+    assert log.read_text().split() == ["start"] * 3 + ["end"] * 3
+    assert all(_build.build_seconds[n] > 0 for n in names)
+    assert _build.build_all(names) == paths  # built: nothing runs again
+    assert log.read_text().split() == ["start"] * 3 + ["end"] * 3

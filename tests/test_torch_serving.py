@@ -217,8 +217,8 @@ def cpu_model():
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(kv_layout="dense"), UnsupportedCacheError, "dense KV layout"),
-    (dict(decode_kernel="pallas"), NotImplementedError, "slice 2"),
-    (dict(prefill_kernel="pallas"), NotImplementedError, "slice 2"),
+    (dict(decode_kernel="pallas"), ValueError, "'reference', 'cuda'"),
+    (dict(prefill_kernel="pallas"), ValueError, "'reference', 'cuda'"),
     (dict(draft_model=object(), spec_k=2), NotImplementedError,
      "speculative"),
     (dict(mesh=object()), NotImplementedError, "dist and XLA"),
